@@ -9,7 +9,7 @@ clusters stay tight, and hand back a fitted consensus model — then annotate
 the discovered signatures against the COSMIC catalog.
 
 Run from the repo root: python examples/de_novo_extraction.py
-(modest sizes so it completes in a few minutes on CPU or one TPU chip).
+(modest sizes so it completes in a few minutes on CPU or one GPU).
 """
 
 import sys

@@ -1,4 +1,4 @@
-"""Round-3 scaling workflows: model-selection grids and beyond-HBM streaming.
+"""Round-3 scaling workflows: model-selection grids and beyond-memory streaming.
 
 Three workflows the reference cannot express (it fits one model at a time,
 fully in memory - /root/reference/src/salamander/models/signature_nmf.py
@@ -8,10 +8,10 @@ fully in memory - /root/reference/src/salamander/models/signature_nmf.py
    masked lanes of a few compiled programs, returning fitted models;
 2. a K-padded minimum-volume (MvNMF) rank scan;
 3. a streaming minibatch fit whose count matrix never touches the device
-   whole - the single-chip beyond-HBM path.
+   whole - the single-device beyond-memory path.
 
 Run from the repo root: python examples/scaling_workflows.py
-(small shapes so it completes quickly on CPU or one TPU chip).
+(small shapes so it completes quickly on CPU or one GPU).
 """
 
 import sys
@@ -64,8 +64,8 @@ print("suggested n_signatures:", tl.suggest_rank(mv, min_stability=0.8))
 
 # -- 3. streaming minibatch fit: X host-resident ---------------------------
 # (Bitwise-equal to the resident path at the same seed; at real scale the
-# host matrix may exceed HBM - see benchmarks/streaming_demo.py for 45M
-# samples on one chip.)
+# host matrix may exceed device memory - see benchmarks/streaming_demo.py
+# for a cohort larger than the device.)
 model = KLNMF(n_signatures=4)
 model.fit_minibatch(
     AnnData(X.copy()), batch_size=64, n_steps=600, eval_freq=200,

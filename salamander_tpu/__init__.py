@@ -1,35 +1,58 @@
-"""salamander_tpu: a TPU-native NMF framework for mutational-signature analysis.
+"""salamander_tpu: a JAX NMF framework for mutational-signature analysis.
 
 A ground-up JAX rebuild of the capabilities of parklab/Salamander v0.4.2:
 KLNMF, minimum-volume NMF, correlated NMF and multimodal correlated NMF over
 annotated data containers, with initialization, signature matching,
-dimensionality reduction and plotting - compute expressed as jitted XLA/Pallas
+dimensionality reduction and plotting - compute expressed as jitted XLA
 programs that vmap over restarts and shard over device meshes.
+
+The device core (ops, engine, initialization, the multi-start, compaction
+and scan drivers in parallel) imports with numpy, scipy and jax alone; the
+container, I/O and analysis layers need pandas and load on first use.
 """
+
+import importlib
 
 from . import (
     consts,
-    containers,
-    datasets,
+    device,
     engine,
     initialization,
-    io,
     ops,
     parallel,
     profiling,
     utils,
 )
-from .assign import (
-    AssignmentResult,
-    BootstrapExposuresResult,
-    assign_exposures,
-    assign_signatures,
-    bootstrap_exposures,
-)
-from .containers import AnnData, MuData
-from .extraction import ExtractionResult, extract_signatures
-from .io import load_extraction, load_model, save_extraction, save_model
-from .parallel import bootstrap_stability, fit_best_of
+from .parallel import fit_best_of
+
+# public names of the pandas-dependent layers, loaded on first access
+_LAZY_MODULES = ("assign", "containers", "datasets", "extraction", "io")
+_LAZY_ATTRS = {
+    "AssignmentResult": "assign",
+    "BootstrapExposuresResult": "assign",
+    "assign_exposures": "assign",
+    "assign_signatures": "assign",
+    "bootstrap_exposures": "assign",
+    "AnnData": "containers",
+    "MuData": "containers",
+    "ExtractionResult": "extraction",
+    "extract_signatures": "extraction",
+    "load_extraction": "io",
+    "load_model": "io",
+    "save_extraction": "io",
+    "save_model": "io",
+    "bootstrap_stability": "parallel",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _LAZY_ATTRS:
+        module = importlib.import_module(f".{_LAZY_ATTRS[name]}", __name__)
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __version__ = "0.5.0"
 
@@ -46,6 +69,7 @@ __all__ = [
     "consts",
     "containers",
     "datasets",
+    "device",
     "engine",
     "ExtractionResult",
     "extract_signatures",

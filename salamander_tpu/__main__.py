@@ -3,6 +3,8 @@
 import sys
 
 from .cli import main
+from .device import enable_compile_cache
 
 if __name__ == "__main__":
+    enable_compile_cache()
     sys.exit(main())

@@ -2,7 +2,7 @@
 
 The reference framework stores all model state inside anndata.AnnData /
 mudata.MuData objects (see reference models/signature_nmf.py:182-224). Those
-packages are heavyweight and not TPU-relevant, so this module provides small,
+packages are heavyweight and not device-relevant, so this module provides small,
 dependency-free equivalents covering the API surface the framework uses:
 
   AnnData: X, n_obs/n_vars, obs/var (pandas DataFrames), obsm/obsp (aligned

@@ -7,15 +7,21 @@ work from a plain ``pip install`` with no external mounts. Search order:
 $SALAMANDER_DATA (override), the packaged data directory, then ./data next
 to a source checkout. All loaders return (n_samples, n_features)-oriented
 DataFrames ready for AnnData(...) (the files store features x samples).
+``read_counts_csv`` reads the same files with numpy alone, for callers
+that must not depend on pandas.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import numpy as np
-import pandas as pd
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 _SEARCH_PATHS = [
     os.environ.get("SALAMANDER_DATA"),
@@ -47,7 +53,23 @@ def _resolve(filename: str) -> Path:
     )
 
 
+def read_counts_csv(key_or_path) -> tuple[np.ndarray, list[str], list[str]]:
+    """A shipped catalog (a FILES key) or any CSV of the same layout, read
+    with numpy alone: (values as stored - features x samples - in float64,
+    row labels, column labels)."""
+    path = (_resolve(FILES[key_or_path]) if key_or_path in FILES
+            else Path(key_or_path))
+    with open(path, newline="") as handle:
+        rows = list(csv.reader(handle))
+    columns = rows[0][1:]
+    index = [row[0] for row in rows[1:]]
+    values = np.array([row[1:] for row in rows[1:]], dtype=np.float64)
+    return values, index, columns
+
+
 def _load_csv(key: str, samples_as_rows: bool = True) -> pd.DataFrame:
+    import pandas as pd
+
     path = _resolve(FILES[key])
     # the shipped COSMIC .txt catalog is comma-separated despite its suffix
     df = pd.read_csv(path, index_col=0)

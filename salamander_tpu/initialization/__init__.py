@@ -2,7 +2,7 @@
 
 Host-side numpy implementations reproduce the reference's exact random draws
 (global np.random seeding) so golden fixtures match; a jax.random-based batch
-initializer serves the multi-start TPU path (parallel layer).
+initializer serves the multi-start device path (parallel layer).
 """
 
 from .initialize import (  # noqa: F401

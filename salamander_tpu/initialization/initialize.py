@@ -24,7 +24,6 @@ from typing import Any
 
 import numpy as np
 
-from .. import containers
 from ..utils import (
     dict_checker,
     shape_checker,
@@ -143,6 +142,8 @@ def initialize_base(
     Given signatures keep their own annotations; the generated ones are named
     SigK.. continuing past them (names rolled as in the reference).
     """
+    from .. import containers  # pandas-backed; the device core stays free of it
+
     given_signatures_mat = None
     if given_asignatures is not None:
         check_given_asignatures(given_asignatures, adata, n_signatures)

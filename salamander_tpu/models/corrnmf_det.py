@@ -240,11 +240,10 @@ class CorrNMFDet(CorrNMF):
         no meaningful relative-change convergence test); the full-data ELBO
         is recorded every `eval_freq` steps into history.
 
-        Practical guidance (measured, BENCHMARKS.md): on TPU, full-batch
-        `fit` is faster AND finds better optima for any cohort where its
-        O(n_samples) cycles are acceptable - reach for this path when they
-        are not. Raising `delay` (20-100) tempers the early noisy steps and
-        preserves more of the initialization basin.
+        Practical guidance: full-batch `fit` finds better optima for any
+        cohort where its O(n_samples) cycles are acceptable - reach for
+        this path when they are not. Raising `delay` (20-100) tempers the
+        early noisy steps and preserves more of the initialization basin.
 
         mesh (optional) shards the resident path's sample axis across
         devices (X, sample scalings/embeddings); the streaming path is

@@ -118,13 +118,13 @@ class KLNMF(StandardNMF):
         Runs a fixed `n_steps` budget; the full-data objective is recorded
         every `eval_freq` steps (eval_freq=0 disables the O(n_samples)
         evaluations).
-        On TPU, full-batch `fit` is faster and better-converging while its
-        O(n_samples) sweeps are acceptable (see BENCHMARKS.md).
+        Full-batch `fit` converges better while its O(n_samples) sweeps
+        are acceptable.
 
         streaming=False keeps the count matrix device-resident.
         streaming=True keeps X HOST-resident and uploads minibatches (and
         eval_chunk-column objective-evaluation chunks) on the fly - the
-        single-chip beyond-HBM path: only W, H and O(batch) buffers live
+        single-device beyond-memory path: only W, H and O(batch) buffers live
         in device memory. Same seed => bitwise-identical parameters across
         the two placements (ops/svi.py run_svi_streaming); integer count
         matrices stay compact on the host (clipped per uploaded batch, not
@@ -135,7 +135,7 @@ class KLNMF(StandardNMF):
         slowly, so fast statistic decay (e.g. the CorrNMF default 0.7)
         freezes the signatures far from the optimum - measured on PCAWG
         SBS: +2% final KL vs full batch at forgetting=0.51 after 12k
-        steps, +30% at 0.7 (BENCHMARKS.md).
+        steps, +30% at 0.7.
 
         mesh (optional) shards the resident path's sample axis across
         devices (X and H); the streaming path is host-driven single-device

@@ -45,13 +45,11 @@ class MvNMF(StandardNMF):
         # line-search trial batching (ops.line_search trial_batch): None =
         # auto (currently serial). Batched trials (e.g. 8) evaluate the
         # shrink candidates as one vmapped objective pass - bitwise-equal
-        # to the serial search on CPU and ~1.4x lower single-fit wall on
-        # TPU (0.15 vs 0.21 s on PCAWG k=5, 2026-08-20), but the batched
-        # matmuls' reduction-order ulps steer the f32 trajectory to a
-        # DIFFERENT convergence stop on TPU (2,980 vs 4,930 iterations,
-        # +0.13% objective vs the CPU trajectory both TPU paths should
-        # track). Trajectory fidelity wins by default; opt in explicitly
-        # for throughput-over-parity workloads.
+        # to the serial search on CPU, but on an accelerator the batched
+        # matmuls' reduction-order ulps can steer the f32 trajectory to a
+        # DIFFERENT convergence stop than the CPU trajectory. Trajectory
+        # fidelity wins by default; opt in explicitly for
+        # throughput-over-parity workloads.
         self._line_search_trial_batch: int | None = None
 
     @property
@@ -86,8 +84,8 @@ class MvNMF(StandardNMF):
 
     def _resolve_trial_batch(self) -> int:
         """Auto policy: serial trials (see the ctor comment - batched
-        trials are measured faster per fit on TPU but land on a different
-        f32 convergence stop; parity wins by default)."""
+        trials can land on a different f32 convergence stop on an
+        accelerator; parity wins by default)."""
         if self._line_search_trial_batch is not None:
             return max(1, int(self._line_search_trial_batch))
         return 1

@@ -2,7 +2,7 @@
 
 Layer L0 of the framework. Each module mirrors the numerics of one reference
 kernel family (see docstrings for file:line citations) but is written
-TPU-first: masked vectorized reductions instead of scalar loops, broadcasts
+for the accelerator: masked vectorized reductions instead of scalar loops, broadcasts
 instead of in-place mutation, and shapes/static arguments chosen so that
 `jax.jit` / `jax.vmap` / sharded `pjit` all compose.
 """

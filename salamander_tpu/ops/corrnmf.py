@@ -33,17 +33,14 @@ from .precision import mm, omm
 # scipy.optimize's Newton-CG 'avextol' default; threshold is dim * XTOL.
 XTOL = 1e-5
 
-# Newton-step products run at full f32 precision. TPU matmuls default to
-# bf16 passes (relative error ~4e-3); the embedding Hessian is
-# sum_k rates_k o_k o_k^T + I/var with rates ~1e4-1e5, so bf16 roundoff
-# (~40 absolute) swamps the I/var term whenever the rates outer-product sum
-# is rank-deficient over the active dims - the computed Hessian then goes
-# INDEFINITE and every Cholesky-based solve NaNs through sqrt. Observed
-# 2026-08-17 on real v5e in the m-padded (k=2, m=3) scan lane: hess came
-# back visibly asymmetric (|H - H^T| ~ 4e-3 relative) with min eigenvalue
-# pushed below zero, while the identical program was clean on CPU. These
-# are (M, m) x (m,) sized products with m = dim_embeddings <= ~10 - full
-# precision costs nothing measurable.
+# Newton-step products run at full f32 precision. A reduced-precision f32
+# matmul (bf16 passes, TF32) has relative error ~1e-3; the embedding
+# Hessian is sum_k rates_k o_k o_k^T + I/var with rates ~1e4-1e5, so that
+# roundoff swamps the I/var term whenever the rates outer-product sum is
+# rank-deficient over the active dims - the computed Hessian then goes
+# INDEFINITE (and asymmetric) and every Cholesky-based solve NaNs through
+# sqrt. These are (M, m) x (m,) sized products with m = dim_embeddings
+# <= ~10, so full precision is cheap.
 from .precision import OBJECTIVE_PRECISION as _HIGHEST  # noqa: E402
 
 
@@ -159,9 +156,9 @@ def embedding_hessian(embedding, embeddings_other, scaling, scalings_other,
 # shares the reference signature exactly; the reference's gradient/hessian
 # take PRECOMPUTED per-row terms (summand_grad = aux_vector @
 # embeddings_other; outer_prods = per-row o_i o_i^T) because its host EM
-# cycle reuses them across Newton iterations - on TPU the fused recompute
-# inside embedding_gradient/_hessian is cheaper than materializing a
-# (rows, m, m) tensor, so these adapters exist for API parity and porting.
+# cycle reuses them across Newton iterations - here the fused recompute
+# inside embedding_gradient/_hessian avoids materializing a (rows, m, m)
+# tensor, so these adapters exist for API parity and porting.
 objective_function_embedding = embedding_objective
 
 
@@ -191,11 +188,11 @@ def hessian_embedding(embedding, embeddings_other, scaling, scalings_other,
 def _cholesky_solve_unrolled(hess, grad):
     """SPD solve by a fully UNROLLED scalar Cholesky + two substitutions.
 
-    No linalg custom call: batched tiny factorizations serialize on TPU
-    (the same pathology as the 2x2 LU, see _solve_spd_small), and any
-    Cholesky of a not-quite-SPD matrix NaNs through sqrt. The static dim
-    is tiny (dim_embeddings, <= ~10), so the unrolled scalar arithmetic is
-    branch-free VPU work that vmaps cleanly.
+    No linalg custom call: a batch of tiny factorizations as a library
+    call is one more kernel per Newton step (see _solve_spd_small), and
+    any Cholesky of a not-quite-SPD matrix NaNs through sqrt. The static
+    dim is tiny (dim_embeddings, <= ~10), so the unrolled scalar
+    arithmetic is branch-free elementwise work that vmaps cleanly.
 
     Pivots are floored at EPSILON * hess[i, i] (the diagonal is strictly
     positive, >= 1/variance): a Hessian that is SPD in exact arithmetic
@@ -234,10 +231,9 @@ def _cholesky_solve_unrolled(hess, grad):
 def _solve_spd_small(hess, grad):
     """Solve hess @ x = grad for the tiny SPD Newton systems.
 
-    jnp.linalg.solve lowers batched 2x2 systems to an LU custom call that
-    serializes on TPU (measured: the sample-side Newton under restart
-    batching spent ~97% of its time here); closed-form Cramer solves for
-    dim <= 3 are branch-free vectorized arithmetic, and larger dims use an
+    jnp.linalg.solve lowers batched 2x2 systems to an LU custom call;
+    closed-form Cramer solves for dim <= 3 are branch-free vectorized
+    arithmetic that fuses with its neighbours, and larger dims use an
     unrolled custom-call-free Cholesky (the Hessian is SPD by
     construction).
     """
@@ -484,12 +480,11 @@ def update_embeddings(embeddings0, embeddings_other, scalings, scalings_other,
 # aux rows and rate terms exact zeros - so the sample-scaling, exposure,
 # aux and BOTH embedding updates need no masking of their own (padded
 # embedding rows start at 0 and their Newton gradient is identically 0
-# there). Deliberately NOT an extreme value like -1e30: TPU transcendental
-# approximations extract 2^x exponents through integer arithmetic, and
-# magnitudes beyond int32 range produced NaNs on real v5e hardware
-# (observed 2026-08-17: the f32 grid scan returned non-finite ELBOs on
-# TPU while bitwise-clean on CPU); -1e4 has the same exact-zero guarantee
-# with ~100x margin and stays in every backend's safe range.
+# there). Deliberately NOT an extreme value like -1e30: transcendental
+# approximations that extract 2^x exponents through integer arithmetic
+# turn magnitudes beyond int32 range into NaNs; -1e4 has the same
+# exact-zero guarantee with ~100x margin and stays in every backend's
+# safe range.
 NEG_PAD_SCALING = -1e4
 
 

@@ -226,8 +226,8 @@ def make_masked_step_functions(n_given_signatures: int = 0):
     at exact zero (so W @ H, every aux ratio and every objective value equal
     the unpadded rank-k computation - adding exact zeros to a contraction is
     exact), and their W columns pass through unchanged. This is what lets a
-    rank scan amortize one XLA compilation over many ranks and pack the MXU's
-    K lanes with real work (rank-scan driver: parallel/restarts.py).
+    rank scan amortize one XLA compilation over many ranks (rank-scan
+    driver: parallel/restarts.py).
     """
 
     def update_fn(params, data):

@@ -27,10 +27,9 @@ from .precision import mm, omm
 
 
 # Largest rank for which the Gram factorizations run as UNROLLED scalar
-# arithmetic instead of linalg custom calls. Tiny LU/Cholesky custom calls
-# serialize on TPU (the dominant per-iteration latency of a single MvNMF
-# fit - measured 2026-08-20: they were ~85% of the 1.2 ms EM step at K=5);
-# the unrolled forms are branch-free VPU work that vmaps cleanly (same
+# arithmetic instead of linalg custom calls. A tiny LU/Cholesky custom
+# call is one more kernel launch per MvNMF step; the unrolled forms are
+# branch-free elementwise work that fuses and vmaps cleanly (same
 # rationale as ops/corrnmf._cholesky_solve_unrolled). Beyond this rank the
 # unrolled code size grows as K^3 and the custom call amortizes.
 _UNROLL_MAX_RANK = 24
@@ -125,8 +124,8 @@ def update_W_unconstrained(X, W, H, lam: float, delta: float,
     """
     n_signatures = W.shape[1]
     # (W^T W + delta I) is SPD: invert via the unrolled Cholesky (the
-    # reference's numba kernel uses np.linalg.inv, mvnmf.py:44; a linalg
-    # custom call here serializes on TPU - see _UNROLL_MAX_RANK)
+    # reference's numba kernel uses np.linalg.inv, mvnmf.py:44; see
+    # _UNROLL_MAX_RANK for why no linalg custom call)
     eye = jnp.eye(n_signatures, dtype=W.dtype)
     Y = _gram_inverse(omm(W.T, W) + delta * eye, n_signatures)
     Y_minus = jnp.maximum(0.0, -Y)
@@ -185,9 +184,9 @@ def line_search(X, W, H, lam: float, delta: float, gamma, W_unconstrained,
     ulps can flip the accept by a shrink step, the same ulp class as
     separately-jitted evals of one expression. Batching removes the
     serialized per-trial objective passes (reference mvnmf.py:69-92
-    re-evaluates KL per trial) at trial_batch x the FLOPs; measured on
-    TPU it trades ~1.4x single-fit wall for a different f32 convergence
-    stop, so the model layer defaults to serial (models/mvnmf.py).
+    re-evaluates KL per trial) at trial_batch x the FLOPs; on an
+    accelerator it can land on a different f32 convergence stop, so the
+    model layer defaults to serial (models/mvnmf.py).
     """
     if trial_batch <= 1:
         prev_objective = kl_divergence_penalized(X, W, H, lam, delta)

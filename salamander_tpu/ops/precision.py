@@ -1,49 +1,60 @@
 """Matmul precision policy for the device compute path.
 
-On TPU, JAX's DEFAULT precision for float32 matmuls is a single bf16 MXU
-pass (~8 mantissa bits). For this package that is not a benign speed knob:
-multiplicative updates iterate ``aux = X / (W @ H)`` thousands of times, so
-bf16-pass noise shifts the MU fixed points, and convergence decisions made
-on a bf16-noisy objective stop at the wrong block. Measured on the real
-chip (2026-08-18, PCAWG breast SBS, k=5; fixed 5000-iteration 100-restart
-window for throughput):
+Multiplicative updates iterate ``aux = X / (W @ H)`` thousands of times, and
+convergence decisions compare objectives at ~1e-6 relative, so the f32
+matmul precision is not a benign speed knob: a reduced-precision pass
+shifts MU fixed points and the stop a decision makes. The policy is
+measured, not left to the backend default.
 
-| f32 matmul mode      | single-fit KL | n_it | best-of-100 | headline   |
-|----------------------|---------------|------|-------------|------------|
-| DEFAULT (bf16x1)     | 20500.6 WRONG | 1790 | 20419.6     | 6.3M it/s  |
-| HIGH    (bf16x3)     | 20430.9       | 4610 | 20413.8     | 2.34M it/s |
-| HIGHEST (bf16x6)     | 20430.7       | 4680 | 20413.7     | 1.53M it/s |
-| CPU f32 reference    | 20428.9       | 4680 | -           | -          |
+Measured on one NVIDIA H100 80GB HBM3, power limit 400 W, JAX 0.9.0
+(scripts/precision_check.py; PCAWG breast SBS, k=5; the CPU row from a
+child process with JAX_PLATFORMS=cpu on the same machine). "gap" is each
+lane's relative Frobenius error of (W, H) after 200 fixed MU steps from
+identical starts against numpy float64, 16 lanes for each of 5 seeds:
+the median lane, and the per-seed median over lanes of the lane's gap
+over the CPU lane's gap (chip_smoke.gap_ratio); "over" counts assignment
+samples (PCAWG x COSMIC v3.3.1, rel_tol 0.02, of 192) whose sparse KL
+exceeds its budget with the setting applied to assignment's updates too;
+the window is 100 restarts x 2,000 fixed iterations, aggregate MU it/s.
 
-DEFAULT also broke the sparse catalog assignment's acceptance invariant
-outright (146/192 samples over their KL budget, supports 42-79 instead of
-14-36). Alternatives measured and rejected: an XLA-level multiply-reduce
-(VPU) formulation reaches 2.27M, a VPU-contraction Pallas kernel 1.82M,
-the MXU Pallas fused block at HIGHEST 1.97M - full-f32 arithmetic tops
-out around ~2M it/s on this chip regardless of route, so HIGH (bf16x3) is
-the best correct-arithmetic operating point for the bulk update path.
+| setting          | fit KL   | n_it | best-of-100 | over | gap     | gap ratio  | it/s      |
+|------------------|----------|------|-------------|------|---------|------------|-----------|
+| DEFAULT          | 20428.94 | 4680 | 20416.10    | 0    | 2.44e-4 | 777-1080   | 4,008,551 |
+| HIGH             | 20428.94 | 4680 | 20415.49    | 0    | 4.35e-5 | 121-214    | 2,584,143 |
+| TF32_TF32_F32_X3 | 20428.82 | 4710 | 20415.92    | 0    | 3.38e-7 | 0.916-1.34 | 3,689,873 |
+| HIGHEST          | 20428.79 | 4720 | 20415.49    | 0    | 3.30e-7 | 0.942-1.53 | 2,598,164 |
+| CPU f32          | 20428.89 | 4680 | 20415.89    | 0    | 2.91e-7 | 1          | -         |
 
-Hence the TIERED policy:
+("fit KL"/"n_it": the single fit.)
 
-- ``MATMUL_PRECISION`` (= HIGH, via :func:`mm`): the bulk multiplicative
-  update path. bf16x3 error (~2^-18 per product) is measured
-  indistinguishable from full f32 in fit quality (best-of-100 identical,
-  final KL within 1e-5 relative of the f32 trajectory).
+Every setting passes the coarse fit criteria (stop within 40 iterations of
+the CPU's, best-of-100 within 3e-5, no sample over budget); the
+fixed-step gap separates them. DEFAULT (TF32) and HIGH sit about three and
+two orders of magnitude off float32, and HIGH is no faster than HIGHEST
+here. HIGHEST is full f32 (its lanes stray from float64 as far as the
+CPU's do), so it is the update tier. TF32_TF32_F32_X3 is as accurate and
+1.42x faster on the H100, but the CPU backend rejects algorithm presets,
+so using it needs a per-backend policy; that stays an open question
+(PERF.md).
+
+Hence the policy, in two named tiers:
+
+- ``MATMUL_PRECISION`` (= HIGHEST, via :func:`mm`): the bulk
+  multiplicative update path.
 - ``OBJECTIVE_PRECISION`` (= HIGHEST, via :func:`omm`): objectives,
   convergence tests, line-search/acceptance comparisons, Newton solves
   and Gram matrices feeding Cholesky. These make DECISIONS (stop/accept/
-  direction), are evaluated ~1/conv_test_freq as often as updates, and
-  get full f32 so the decision noise floor stays at f32 resolution.
+  direction) and stay at full f32 whatever the update tier becomes.
 
-CPU ignores precision entirely, which is why the golden-fixture tests
-could not catch the DEFAULT corruption; tests/test_precision.py walks the
-traced jaxprs instead and fails on any unpinned dot_general.
+CPU ignores precision entirely, which is why golden-fixture tests could
+not catch a reduced-precision regression; tests/test_precision.py walks the
+traced jaxprs instead and fails on any dot off the policy.
 
 The policy is a CONSTANT, not a runtime knob: JAX's trace caches key on
 function identity + shapes, so a precision flipped after any tracing
-silently would not take effect (verified: a re-trace of ``mm`` under a
-mutated module global returns the first trace's precision). A throughput
-experiment should edit this module and restart the process.
+silently would not take effect (a re-trace of ``mm`` under a mutated
+module global returns the first trace's precision). A measurement sets it
+before anything traces, in a fresh process (scripts/precision_check.py).
 """
 
 from __future__ import annotations
@@ -53,12 +64,12 @@ from jax import lax
 
 __all__ = ["MATMUL_PRECISION", "OBJECTIVE_PRECISION", "mm", "omm"]
 
-MATMUL_PRECISION = lax.Precision.HIGH
+MATMUL_PRECISION = lax.Precision.HIGHEST
 OBJECTIVE_PRECISION = lax.Precision.HIGHEST
 
 
 def mm(a, b):
-    """Matmul at the bulk-update precision (bf16x3 on TPU; see module doc)."""
+    """Matmul at the bulk-update precision (see module doc)."""
     return jnp.matmul(a, b, precision=MATMUL_PRECISION)
 
 

@@ -10,7 +10,8 @@ collectives for the cross-sample reductions inside the W update and the
 objectives.
 """
 
-from .bootstrap import BootstrapResult, bootstrap_stability  # noqa: F401
+import importlib
+
 from .compaction import (  # noqa: F401
     CompactingRunner,
     fit_klnmf_restarts_compacting,
@@ -32,3 +33,14 @@ from .restarts import (  # noqa: F401
     rank_scan_klnmf,
     rank_scan_mvnmf,
 )
+
+# bootstrap_stability needs pandas; it loads on first access so the device
+# drivers above import with numpy, scipy and jax alone
+_LAZY_ATTRS = {"BootstrapResult": "bootstrap", "bootstrap_stability": "bootstrap"}
+
+
+def __getattr__(name):
+    if name in _LAZY_ATTRS:
+        module = importlib.import_module(f".{_LAZY_ATTRS[name]}", __name__)
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

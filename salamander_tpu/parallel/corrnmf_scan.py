@@ -5,7 +5,7 @@ The model-selection axes for CorrNMF are n_signatures AND dim_embeddings
 (the reference defaults dim_embeddings to n_signatures precisely because
 users tune it, /root/reference/src/salamander/models/corrnmf.py:60-63).
 Driven through the generic rank_scan() each grid point costs one XLA
-compilation - minutes per point on a remote-compile TPU platform. Here
+compilation. Here
 every (k, m) is padded to a shared (Kp, mp) bucket and runs as lanes of ONE
 compiled program per bucket, using the rank- and dim-masked CorrNMF step
 (ops/corrnmf.py make_masked_corrnmf_step):
@@ -19,12 +19,10 @@ compiled program per bucket, using the rank- and dim-masked CorrNMF step
 Equivalence to the unpadded programs is pinned by tests/test_rank_padding.py
 (trajectory-level ~1e-9/cycle: XLA picks different fma/reduction kernels per
 contraction width, and the branchy Newton amplifies ulps - the same caveat
-as the K-only padding, see docs/ROADMAP.md item 0).
+as the K-only padding).
 
-Measured (PCAWG SBS, k=2..7 x 4 restarts, 200 cycles, TPU v5e): warm-process
-wall 6.6s padded vs 25.0s unpadded (3.8x) at fixed m; a k x m grid
-multiplies the unpadded compile count by |m-range| while the padded scan
-keeps one program per (Kp, mp) bucket.
+A k x m grid multiplies the unpadded compile count by |m-range| while
+the padded scan keeps one program per (Kp, mp) bucket.
 
 Each scan point comes back as a CorrScanResult carrying a FITTED model
 (winner lanes absorbed into the model class, full analysis/plotting surface
@@ -71,7 +69,8 @@ def _cached_masked_run(config: FitConfig, x64: bool):
 # the batched aux/ratio intermediates cost ~3 (D, V) + 2 (D, Kp) buffers
 # per lane; cap lanes per program call so big cohorts don't OOM (every
 # call of a bucket still shares the SAME compiled program: per-point calls
-# all carry n_restarts lanes of identical shape)
+# all carry n_restarts lanes of identical shape). Size on a 16 GiB device,
+# scaled by device.memory_budget.
 _LANE_BUDGET_BYTES = 4 * 1024**3
 
 _PARAM_KEYS = (
@@ -258,7 +257,6 @@ def rank_scan_corrnmf(
     point. Compare padded grid scans against other padded grid scans
     (or rerun the winner as a dedicated fit via `model_factory`) rather
     than expecting them to reproduce dedicated-fit restart winners.
-    Measured details: BENCHMARKS.md "(k, m) grid twin".
 
     model_factory(k, m) may override the fitted class/hyperparameters
     (default: CorrNMFDet(n_signatures=k, dim_embeddings=m,
@@ -276,7 +274,7 @@ def rank_scan_corrnmf(
     pack_points (None = auto, parallel.restarts._resolve_pack): several
     points of a bucket share one lockstep call only for fixed-length
     runs - with early exit active, fast points burn the slowest point's
-    iterations (frozen lanes still compute; measured 4x on MvNMF) and
+    iterations (frozen lanes still compute) and
     the Newton inner loops couple across lanes. Per-point calls of a
     bucket still share ONE compiled program. Results identical either
     way (per-lane freezing).
@@ -470,6 +468,7 @@ def rank_scan_corrnmf(
 
     pack = _resolve_pack(pack_points, config)
     n_samples, n_features = X.shape
+    from ..device import memory_budget
     from .restarts import _INFLIGHT_BUDGET_BYTES, _pytree_nbytes
 
     def drain(in_flight):
@@ -479,19 +478,21 @@ def rank_scan_corrnmf(
             absorb(result, final_losses, chunk)
         in_flight.clear()
 
+    lane_budget = memory_budget(_LANE_BUDGET_BYTES)
+    inflight_budget = memory_budget(_INFLIGHT_BUDGET_BYTES)
     try:
         in_flight = []
         for (padded_k, padded_m), group in sorted(buckets.items()):
             per_lane = (
                 3 * n_samples * n_features + 2 * n_samples * padded_k
             ) * 8
-            lanes_cap = max(n_restarts, _LANE_BUDGET_BYTES // per_lane)
+            lanes_cap = max(n_restarts, lane_budget // per_lane)
             if pack and len(group) * n_restarts <= lanes_cap:
                 chunks = [group]
             else:
                 # one point per call: every call still has n_restarts lanes
                 # of identical shape, so the bucket keeps ONE compiled
-                # program (the klnmf twin's HBM guard)
+                # program (the klnmf twin's memory guard)
                 chunks = [[entry] for entry in group]
             for chunk in chunks:
                 in_flight.append(
@@ -500,7 +501,7 @@ def rank_scan_corrnmf(
                 # byte-bounded deferral: every in-flight chunk retains its
                 # full device FitResult until fetched
                 if sum(_pytree_nbytes(p) for _, p in in_flight) > \
-                        _INFLIGHT_BUDGET_BYTES:
+                        inflight_budget:
                     drain(in_flight)
         drain(in_flight)
     finally:

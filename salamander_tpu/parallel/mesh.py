@@ -6,12 +6,13 @@ Axes:
                argmin over losses.
   'samples'  - the D axis of X and H; the W-update numerator (aux @ H^T), the
                column sums and every objective reduce over D, so XLA inserts
-               all-reduces over this axis (rides ICI within a slice).
+               all-reduces over this axis (rides NVLink within a host).
 
-Multi-host/multi-slice: init_distributed() brings up the jax.distributed
-runtime, and make_hybrid_mesh() factors the global device set so the
-communication-free restart axis is the ONLY axis crossing slice boundaries
-(DCN), while the all-reducing sample axis stays inside a slice (ICI).
+Multi-host: init_distributed() brings up the jax.distributed runtime, and
+make_hybrid_mesh() factors the global device set so the communication-free
+restart axis is the ONLY axis crossing host boundaries (the network
+between hosts), while the all-reducing sample axis stays inside one host
+(NVLink).
 """
 
 from __future__ import annotations
@@ -30,17 +31,17 @@ def init_distributed(
     process_id: int | None = None,
     **kwargs,
 ) -> None:
-    """Initialize the multi-process JAX runtime (multi-host TPU pods /
-    multi-slice deployments).
+    """Initialize the multi-process JAX runtime (several hosts, or one
+    process per GPU).
 
-    Thin, idempotent wrapper around jax.distributed.initialize: on managed
-    TPU platforms all arguments auto-detect from the environment; on manual
-    clusters pass coordinator_address='host:port', num_processes and
+    Thin, idempotent wrapper around jax.distributed.initialize: under a
+    cluster manager JAX detects (e.g. SLURM) the arguments auto-detect;
+    otherwise pass coordinator_address='host:port', num_processes and
     process_id. After this, jax.devices() is the GLOBAL device set and
     make_mesh()/make_hybrid_mesh() build meshes spanning all hosts.
 
-    The reference is strictly single-process (SURVEY.md section 5.8); this is
-    the TPU-native replacement for the distributed runtime it lacks.
+    The reference is strictly single-process (SURVEY.md section 5.8); this
+    is the distributed runtime it lacks.
     """
     if jax.distributed.is_initialized():
         return  # already initialized - keep it
@@ -53,11 +54,13 @@ def init_distributed(
 
 
 def slice_groups(devices) -> list[list]:
-    """Group devices by TPU slice (falls back to one group when the platform
-    exposes no slice_index - CPU, single slice)."""
+    """Group devices by host (process_index): devices of one group share
+    NVLink, groups talk over the network. One group in a single process."""
     groups: dict[int, list] = {}
     for device in devices:
-        groups.setdefault(getattr(device, "slice_index", 0), []).append(device)
+        groups.setdefault(getattr(device, "process_index", 0), []).append(
+            device
+        )
     return [groups[index] for index in sorted(groups)]
 
 
@@ -66,52 +69,53 @@ def hybrid_mesh_shape(
     n_slices: int,
     sample_ways: int | None = None,
 ) -> tuple[tuple[int, int], tuple[int, int]]:
-    """Factor a multi-slice deployment into (per-slice ICI shape, DCN shape)
-    for a (restarts, samples) mesh.
+    """Factor a multi-host deployment into (per-host shape, across-host
+    shape) for a (restarts, samples) mesh.
 
-    The sample axis all-reduces every iteration, so it must never cross DCN:
-    its full extent lives inside one slice. Restarts communicate only at the
-    final argmin, so they take the whole DCN axis plus the leftover ICI.
-    Returns ((restarts_per_slice, sample_ways), (n_slices, 1)).
+    The sample axis all-reduces every iteration, so it must never cross the
+    network: its full extent lives inside one host. Restarts communicate
+    only at the final argmin, so they take the whole across-host axis plus
+    the leftover inside each host.
+    Returns ((restarts_per_host, sample_ways), (n_hosts, 1)).
     """
     if sample_ways is None:
         _, sample_ways = _factor(n_devices_per_slice)
     if n_devices_per_slice % sample_ways:
         raise ValueError(
-            f"{n_devices_per_slice} devices per slice not divisible by "
+            f"{n_devices_per_slice} devices per host not divisible by "
             f"sample_ways={sample_ways}"
         )
     return (n_devices_per_slice // sample_ways, sample_ways), (n_slices, 1)
 
 
 def make_hybrid_mesh(devices=None, sample_ways: int | None = None) -> Mesh:
-    """Build a (restarts, samples) mesh over a (possibly multi-slice,
-    multi-host) device set with DCN-aware axis placement.
+    """Build a (restarts, samples) mesh over a (possibly multi-host) device
+    set with host-aware axis placement.
 
-    Single-slice sets reduce to make_mesh. Multi-slice sets are laid out so
-    that consecutive sample-axis neighbors are always intra-slice (ICI) and
-    only the restart axis spans slices (DCN) - the layout
+    Single-host sets reduce to make_mesh. Multi-host sets are laid out so
+    that consecutive sample-axis neighbors are always on one host (NVLink)
+    and only the restart axis spans hosts - the layout
     jax.experimental.mesh_utils.create_hybrid_device_mesh produces for
-    (ici_shape, dcn_shape) as computed by hybrid_mesh_shape.
+    (per-host shape, across-host shape) as computed by hybrid_mesh_shape.
     """
     if devices is None:
         devices = jax.devices()
     groups = slice_groups(devices)
     if len(groups) == 1:
         return make_mesh(devices, sample_ways)
-    per_slice = len(groups[0])
-    if any(len(group) != per_slice for group in groups):
-        raise ValueError("Slices expose different device counts.")
-    ici_shape, dcn_shape = hybrid_mesh_shape(
-        per_slice, len(groups), sample_ways
+    per_host = len(groups[0])
+    if any(len(group) != per_host for group in groups):
+        raise ValueError("Hosts expose different device counts.")
+    host_shape, across_shape = hybrid_mesh_shape(
+        per_host, len(groups), sample_ways
     )
     from jax.experimental import mesh_utils
 
     grid = mesh_utils.create_hybrid_device_mesh(
-        ici_shape, dcn_shape, devices=devices,
-        process_is_granule=False,
+        host_shape, across_shape, devices=devices,
+        process_is_granule=True,
     )
-    # hybrid grid is (dcn_restarts * ici_restarts, samples)
+    # hybrid grid is (hosts * restarts_per_host, samples)
     return Mesh(grid, (RESTART_AXIS, SAMPLE_AXIS))
 
 

@@ -37,29 +37,23 @@ class Timings:
 
 @contextmanager
 def phase(timings: Timings, name: str):
-    """Time a named phase; device work is flushed before stopping the clock."""
+    """Time a named phase up to the completion of what it produced.
+
+    Yields a list; append the phase's outputs (arrays or pytrees of them)
+    to it, and the clock stops only once they are ready on the device -
+    JAX returns at dispatch, so a timer without this measures the
+    enqueue. An exception in the phase propagates and records nothing.
+
+        with phase(timings, "fit") as produced:
+            produced.append(run(params0, data))
+    """
+    import jax
+
+    produced: list = []
     start = time.perf_counter()
-    try:
-        yield
-    finally:
-        _block_on_device()
-        timings.add(name, time.perf_counter() - start)
-
-
-def _block_on_device() -> None:
-    """Drain pending device work so the clock stops at completion, not
-    dispatch: synchronize every device (PJRT), falling back to the
-    effects barrier where unsupported."""
-    try:
-        import jax
-
-        for device in jax.devices():
-            synchronize = getattr(device, "synchronize_all_activity", None)
-            if synchronize is not None:
-                synchronize()
-        jax.effects_barrier()
-    except Exception:
-        pass
+    yield produced
+    jax.block_until_ready(produced)
+    timings.add(name, time.perf_counter() - start)
 
 
 @contextmanager
@@ -79,6 +73,7 @@ def timed_fit(model, adata, timings: Timings | None = None, **fit_kwargs):
     shape pays XLA compilation; a second identical-state call measures
     steady-state. Returns (model, Timings)."""
     timings = timings or Timings()
+    # fit() fetches its result to the host, so it returns at completion
     with phase(timings, "fit(total, incl. compile)"):
         model.fit(adata, **fit_kwargs)
     return model, timings

@@ -1,8 +1,8 @@
 """Model dtype knob + principled convergence at reduced precision.
 
 The reference is float64 numpy throughout, so its tol=1e-7 convergence test
-is always meaningful (signature_nmf.py:141-146,373-380). The TPU production
-path runs float32; these tests pin the two mechanisms that keep the
+is always meaningful (signature_nmf.py:141-146,373-380). The accelerator
+production path runs float32; these tests pin the two mechanisms that keep the
 convergence contract intact there:
   * the engine floors the tolerance at the objective dtype's resolution
     (engine.tolerance_floor) and warns,
@@ -133,7 +133,7 @@ def test_promote_objective_upcasts_f32():
 
 
 # --------------------------------------------------------------------------
-# f32 fits terminate meaningfully (VERDICT round-1 weakness #1)
+# f32 fits terminate meaningfully
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("model_cls,kwargs", [

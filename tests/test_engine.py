@@ -6,7 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from salamander_tpu.engine import FitConfig, fit_loop, make_fit_function
+from salamander_tpu.engine import (
+    FitConfig,
+    fit_loop,
+    fit_loop_lockstep,
+    make_fit_function,
+)
+from salamander_tpu.ops import klnmf
 
 
 def quadratic_problem(rate):
@@ -291,3 +297,57 @@ def test_fit_runner_cache_invalidates_on_config():
     reused.max_iterations = 80
     reused.fit(AnnData(X), init_kwargs={"seed": 0})
     assert reused.history["n_iterations"] == 80
+
+@pytest.fixture(scope="module")
+def mu_problem():
+    rng = np.random.default_rng(0)
+    V, D = 16, 32
+    return jnp.asarray(
+        np.clip(rng.poisson(30, (V, D)), klnmf.EPSILON, None), jnp.float32
+    )
+
+
+def test_lockstep_loop_matches_vmap(mu_problem):
+    """fit_loop_lockstep must reproduce vmap(fit_loop) exactly: per-lane
+    histories, eval counts, iteration counts and final params."""
+    X = mu_problem
+    rng = np.random.default_rng(2)
+    R, V, K, D = 4, X.shape[0], 3, X.shape[1]
+    W0 = jnp.asarray(rng.dirichlet(np.ones(V), (R, K)).transpose(0, 2, 1),
+                     jnp.float32)
+    H0 = jnp.asarray(rng.uniform(size=(R, K, D)).astype(np.float32) * 30)
+    params0 = {"W": W0, "H": H0}
+    config = FitConfig(min_iterations=10, max_iterations=200,
+                       conv_test_freq=10, tol=1e-5)
+
+    def update(p):
+        W, H = klnmf.update_WH(X, p["W"], p["H"])
+        return {"W": W, "H": H}
+
+    def objective(p):
+        return klnmf.kl_divergence(X, p["W"], p["H"])
+
+    vmapped = jax.jit(jax.vmap(
+        lambda p: fit_loop(update, objective, p, config)
+    ))(params0)
+
+    batched_update = jax.vmap(update)
+
+    def block_update(p, steps):
+        return jax.lax.fori_loop(0, steps, lambda _, q: batched_update(q), p)
+
+    lockstep = jax.jit(lambda p: fit_loop_lockstep(
+        jax.vmap(objective), p, config, block_update
+    ))(params0)
+
+    assert np.array_equal(np.asarray(lockstep.n_iterations),
+                          np.asarray(vmapped.n_iterations))
+    assert np.array_equal(np.asarray(lockstep.n_evals),
+                          np.asarray(vmapped.n_evals))
+    np.testing.assert_allclose(np.asarray(lockstep.params["W"]),
+                               np.asarray(vmapped.params["W"]), rtol=1e-6)
+    lh, vh = np.asarray(lockstep.history), np.asarray(vmapped.history)
+    np.testing.assert_allclose(
+        np.where(np.isnan(lh), -1.0, lh), np.where(np.isnan(vh), -1.0, vh),
+        rtol=1e-6,
+    )

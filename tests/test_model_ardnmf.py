@@ -42,7 +42,7 @@ def prior(request):
 def fitted(prior):
     # L1 prunes exactly through Poisson noise (the realistic case); L2's
     # softer shrinkage is pinned on a noise-free cohort (see the class
-    # docstring's prior guidance - both measured, ROADMAP/ BENCHMARKS)
+    # docstring's prior guidance - both measured)
     poisson = prior == "L1"
     adata, W_true = planted_adata(poisson=poisson)
     model = ARDNMF(

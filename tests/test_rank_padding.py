@@ -499,8 +499,8 @@ def test_rank_scan_mvnmf_pack_points_invariant():
     """Packing several ranks into one lockstep call vs one call per rank
     must not change any result (per-lane freezing makes each lane's
     trajectory independent of its call's co-tenants) - only wall time
-    differs (BENCHMARKS.md: packing a convergence-based scan measured
-    4x slower on TPU, hence the auto policy packs fixed-length runs
+    differs (packing a convergence-based scan makes fast ranks run the
+    slow ranks' iterations, hence the auto policy packs fixed-length runs
     only)."""
     from salamander_tpu.parallel import rank_scan_mvnmf
 
